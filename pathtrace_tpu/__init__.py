@@ -1,4 +1,4 @@
-"""tpu-pathtrace: a TPU-native differentiable path-tracing framework.
+"""tpu-pathtrace: a differentiable path-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the CUDA
 reference ``trevor-m/cuda-pathtrace`` (see SURVEY.md): renders diffuse sphere
@@ -11,9 +11,10 @@ Key architectural differences from the reference (by design, not porting):
 - The CUDA megakernel (reference ``src/pathtrace.cu:203-257``) becomes a
   dense, branch-free **wavefront pipeline**: fixed-depth bounce unrolling over
   ``[spp, H, W]`` arrays with an active-ray mask, implemented both as pure
-  ``jax.numpy`` (differentiable oracle) and as a Pallas TPU kernel (fast path).
+  ``jax.numpy`` (differentiable reference) and as a Pallas megakernel on the
+  Triton route (the GPU fast path).
 - curand per-pixel sequences (reference ``src/pathtrace.cu:259-266``) become
-  counter-based threefry streams keyed on ``(seed, sample, pixel)`` —
+  counter-based hash streams keyed on ``(seed, sample, pixel)`` —
   order-independent and shard-invariant.
 - Single-GPU pixel parallelism (reference ``include/Renderer.h:29-33``)
   becomes tile + spp sharding over a ``jax.sharding.Mesh`` with Chan

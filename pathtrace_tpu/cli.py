@@ -5,9 +5,9 @@ Preserves the reference's flag names, short options and defaults
 pitch 0, output ``output/out``; ``--nobitmap`` suppresses the 8 per-feature
 bitmaps; ``--interactive`` runs the frame loop (headless driver here — see
 pathtrace_tpu/interactive.py); ``--denoising`` runs AOVs through the JAX
-denoise CNN in-process. ``--threads-per-block`` is accepted for
-compatibility and maps to the Pallas tile height; ``--device`` selects a
-JAX device index.
+denoise CNN in-process; ``--threads-per-block`` t sets the megakernel's
+t x t pixel tile, one thread per pixel; ``--device`` selects a JAX device
+index.
 
 Run as ``python -m pathtrace_tpu.cli [options]`` (or the ``tpu-pathtrace``
 entry point).
@@ -24,11 +24,12 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="tpu-pathtrace",
-        description="TPU-native differentiable path tracer "
+        description="Differentiable path tracer in JAX "
         "(capabilities of cuda-pathtrace, re-designed for JAX/XLA/Pallas)",
     )
     p.add_argument("-t", "--threads-per-block", type=int, default=8,
-                   help="Compatibility alias: Pallas tile height (CUDA block edge in the reference).")
+                   help="Block edge t: the GPU megakernel renders t x t pixel tiles, "
+                        "one thread per pixel (a power of two)")
     p.add_argument("--size", type=int, default=512, help="Size of the screen in pixels")
     p.add_argument("-s", "--samples", type=int, default=4, help="Number of samples per pixel")
     p.add_argument("--device", type=int, default=0, help="Which accelerator device to use for rendering")
@@ -44,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--camera-pitch", type=float, default=0.0, help="Starting camera view pitch")
     # -- new capabilities beyond the reference CLI --
     p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default="auto",
-                   help="Tracer implementation: pure-JAX oracle or Pallas TPU kernel")
+                   help="Tracer implementation: pure-JAX reference or the GPU megakernel "
+                        "(auto: megakernel on a GPU, jnp on the CPU)")
     p.add_argument("--bounces", type=int, default=5, help="Path depth (5 in the reference)")
     p.add_argument("--nee", action="store_true",
                    help="Next-event-estimation direct lighting (the reference's "
@@ -75,6 +77,9 @@ def main(argv=None) -> int:
 
     import jax
 
+    from pathtrace_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     devices = jax.devices()
     if args.device >= len(devices):
         print(f"ERROR: device {args.device} out of range ({len(devices)} available)",
@@ -106,10 +111,10 @@ def main(argv=None) -> int:
         max_bounces=args.bounces,
         spp_chunk=args.spp_chunk,
         backend=args.backend,
+        threads_per_block=args.threads_per_block,
         seed=args.seed,
         brdf=args.brdf,
         nee=args.nee,
-        tile_shape=(max(args.threads_per_block, 8), 128),
     )
     scene = cornell_box()
     cam = Camera.create(

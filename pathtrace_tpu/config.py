@@ -3,16 +3,12 @@
 One dataclass replaces the reference's boost::program_options flag soup
 (reference ``src/main.cu:20-46``). Defaults match the reference exactly:
 size 512, 4 spp, camera (50, 52, 295.6) yaw -90 pitch 0, output
-``output/out`` (reference ``src/main.cu:20-29``). The reference's
-``threads-per-block`` (CUDA block edge) maps to ``tile_shape`` — the Pallas
-tile footprint, which on TPU wants (8, 128)-aligned blocks rather than 8x8
-CUDA blocks.
+``output/out``, 8 threads per block edge (reference ``src/main.cu:20-29``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
 
 # MAX_BOUNCES and PUSH_RAY_ORIGIN mirror reference src/pathtrace.cu:7-8.
 MAX_BOUNCES = 5
@@ -45,14 +41,19 @@ class RenderConfig:
         moments merged associatively (Chan's formula) between chunks —
         bounds memory for high spp and is the same merge used across mesh
         shards. 0 means a single chunk.
-      backend: "jnp" (pure-JAX wavefront, differentiable oracle),
-        "pallas" (TPU megakernel fast path), or "auto".
+      backend: "jnp" (pure-JAX wavefront, differentiable reference),
+        "pallas" (the GPU megakernel), or "auto" (the megakernel on a GPU,
+        jnp on the CPU; pathtrace_tpu/backend.py).
       jitter: sub-pixel jitter. The reference jitters iff spp != 1
         (``src/pathtrace.cu:222-225``); None reproduces that, True/False
         forces.
+      threads_per_block: the reference's CUDA block edge t (``--threads-
+        per-block``, default 8). The megakernel runs t x t pixel tiles on
+        t*t/32 warps, one thread per pixel; t must be a power of two. 8 was
+        the fastest edge on an H100 (PERF.md). The jnp backend ignores it.
       seed: RNG seed; reference seeds curand per-pixel with the pixel id
-        (``src/pathtrace.cu:265``), we fold a global seed with (sample,
-        pixel) into threefry counters.
+        (``src/pathtrace.cu:265``), we fold a global seed with (frame,
+        sample, draw slot, pixel) into a counter hash (rng.py).
     """
 
     width: int = 512
@@ -61,15 +62,10 @@ class RenderConfig:
     max_bounces: int = MAX_BOUNCES
     spp_chunk: int = 0
     backend: str = "auto"
+    threads_per_block: int = 8
     jitter: bool | None = None
     seed: int = 0
     push_ray_origin: float = PUSH_RAY_ORIGIN
-    # (8, 256) won the v5e tile sweep for BOTH the forward megakernel
-    # (5.36 vs 5.15 Grays/s at 512^2x32spp) and the fused fwd+bwd kernel
-    # (4.31 vs 4.09) over the old (16, 256) — the grad kernels hold ~130
-    # live (th, tw) f32 arrays, so the smaller tile relieves VMEM pressure;
-    # measured interleaved best-of-6 to cancel shared-chip drift.
-    tile_shape: Tuple[int, int] = (8, 256)
     # Next-event estimation (the reference's dormant getDirectLighting,
     # pathtrace.cu:138-148,169): off by default for image parity; when on,
     # the light index matches the reference's hard-coded 8.

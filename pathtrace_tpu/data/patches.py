@@ -7,7 +7,7 @@ probability proportional to score (the reference's rejection loop with its
 ``sanity`` fallback is replaced by the equivalent normalized weighted
 choice — same distribution, no unbounded loop).
 
-Data layout here is channels-LAST [H, W, 14] (TPU-native), vs the
+Data layout here is channels-LAST [H, W, 14] (the layout XLA's convs take), vs the
 reference's CHW.
 """
 

@@ -1,6 +1,6 @@
 """Differentiable rendering: pixel gradients w.r.t. scene + camera.
 
-The headline capability the CUDA reference never had (BASELINE.json north
+The headline capability the CUDA reference never had (the north
 star): the entire sampler is pure jnp, so reverse-mode AD flows from pixel
 losses back to every sphere's position/radius/albedo/emission and the
 camera pose. Conventions (SURVEY.md §7 M4, "hard parts" #1):

@@ -6,7 +6,7 @@ CNN denoiser live (``Window.h:168-169``), every frame renders into a
 shared CUDA/torch buffer, a 'denoise' kernel packs clamped RGB for
 GL_POINTS drawing (``src/denoise.cu``).
 
-TPU-native equivalent: a jit-compiled ``FrameStepper`` —
+JAX equivalent: a jit-compiled ``FrameStepper`` —
 ``camera, frame -> display RGB`` — with the same control semantics exposed
 as an API (``move``/``look``/``toggle_denoising``), driving either an
 offline sequence writer (frames to BMP/PNG) or any embedding UI. The

@@ -51,7 +51,6 @@ def make_inverse_step(
     target: jnp.ndarray,
     optimize: Sequence[str] = ("color",),
     learning_rate: float = 2e-2,
-    interpret: bool = False,
     grad_mask: Dict[str, jnp.ndarray] | None = None,
 ):
     """Returns (init_state, jitted step_fn, optimizer).
@@ -79,56 +78,19 @@ def make_inverse_step(
         tx = optax.adam(learning_rate)
     init_params = {name: getattr(base_scene, name) for name in optimize}
 
-    # All-Pallas fast path. Diffuse/no-NEE: the hand-derived product-chain
-    # backward covers emission/albedo in two trajectory passes (geometry
-    # grads are exactly zero for the pure emission-gathering estimator —
-    # grad.py docs). NEE/glossy: pallas_cross_grads replays through the
-    # in-kernel-AD backward (ops/pallas_ad.py), which also carries
-    # position/radius — so geometry optimization runs all-Pallas too
-    # (enable cfg.nee, the estimator that makes geometry differentiable).
-    if cfg.backend == "pallas":
-        if not cfg.nee and cfg.brdf == "diffuse":
-            pallas_fields = {"color", "emission"}
-        else:
-            pallas_fields = {"color", "emission", "position", "radius"}
-        use_pallas = set(optimize) <= pallas_fields
-    else:
-        use_pallas = False
-
     @jax.jit
     def step_fn(state: InverseState):
         # Cross-estimator: two INDEPENDENT renders A, B give
         # E[(A-T)(B-T)] = ||E[render]-T||^2 with no Var(render) term.
         # Plain L2 on one noisy render is biased toward darker scenes
         # (it also minimizes the Monte Carlo variance).
-        if use_pallas:
-            from pathtrace_tpu.ops.pallas_grad import pallas_cross_grads
+        def loss_fn(params):
+            scene = _apply_params(base_scene, params)
+            a = render_color(scene, cam, cfg, frame=2 * state.step)
+            b = render_color(scene, cam, cfg, frame=2 * state.step + 1)
+            return jnp.mean((a - target) * (b - target))
 
-            scene = _apply_params(base_scene, state.params)
-            loss, d_scene = pallas_cross_grads(
-                scene, cam, cfg, state.step, target, interpret=interpret
-            )
-            grads = {}
-            for name in optimize:
-                g = d_scene[name]
-                if name == "color":
-                    # Chain through _apply_params' jnp.clip (same edge
-                    # subgradient convention as reverse-mode AD: 0.5 on
-                    # the boundary, 0 outside).
-                    p = state.params["color"]
-                    inside = ((p >= 0.0) & (p <= 1.0)).astype(g.dtype)
-                    edge = ((p == 0.0) | (p == 1.0)).astype(g.dtype)
-                    g = g * (inside - 0.5 * edge)
-                grads[name] = g
-        else:
-
-            def loss_fn(params):
-                scene = _apply_params(base_scene, params)
-                a = render_color(scene, cam, cfg, frame=2 * state.step)
-                b = render_color(scene, cam, cfg, frame=2 * state.step + 1)
-                return jnp.mean((a - target) * (b - target))
-
-            loss, grads = jax.value_and_grad(loss_fn)(state.params)
+        loss, grads = jax.value_and_grad(loss_fn)(state.params)
         if grad_mask:
             grads = {
                 k: g * grad_mask[k] if k in grad_mask else g

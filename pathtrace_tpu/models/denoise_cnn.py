@@ -1,8 +1,8 @@
 """Denoising CNN: residual encoder + FPN-style top-down refinement.
 
 Re-design of the reference's PyTorch ``DenoiseCNN``
-(``denoise_cnn/model.py:33-119``) in Flax/NHWC (TPU-native layout — the MXU
-consumes channels-last convs directly):
+(``denoise_cnn/model.py:33-119``) in Flax/NHWC (channels-last, the layout the
+convs consume directly):
 
 - 6 stride-2 ``ResidualBlock``s 14->32->64->128->256->512->1024
   (``model.py:49-56``); each block is conv3x3/s2 -> relu -> BN ->

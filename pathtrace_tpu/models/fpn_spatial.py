@@ -17,8 +17,8 @@ natural (the activation volume shrinks 4x per stage):
   ``all_gather``ed and blocks K+1..6 plus the coarse top-down iterations
   run replicated — at 1024^2 input the level-6 activation is 16^2 x 1024,
   trivially replicable (the reference hard-codes 512^2 at
-  ``src/main.cu:104``; this path is how the TPU framework renders and
-  denoises beyond one chip's memory).
+  ``src/main.cu:104``; this path is how the framework renders and
+  denoises beyond one device's memory).
 - **Sharded top-down tail**: the half/full-resolution laterals, the final
   ``backwards`` convs, the x4 bilinear ``upsample_add``s, the RGB head
   and the albedo re-multiply run on row shards. The x4 bilinear kernel

@@ -37,7 +37,7 @@ void put_bytes(std::vector<uint8_t>& out, const void* data, size_t n) {
 
 template <typename T>
 void put(std::vector<uint8_t>& out, T v) {
-  put_bytes(out, &v, sizeof(T));  // little-endian hosts only (x86/ARM/TPU VM)
+  put_bytes(out, &v, sizeof(T));  // little-endian hosts only (x86/ARM)
 }
 
 void put_str(std::vector<uint8_t>& out, const char* s) {

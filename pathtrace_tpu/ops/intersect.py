@@ -1,9 +1,9 @@
 """Ray-sphere intersection, vectorized rays x spheres.
 
 The reference iterates 9 spheres per thread with branchy scalar code
-(``src/pathtrace.cu:72-107``). TPU-native form: one dense broadcast over
-``[..., N]`` candidates and a masked min-reduce — the VPU sees pure
-elementwise math plus a reduction, with no divergence.
+(``src/pathtrace.cu:72-107``). Array form: one dense broadcast over
+``[..., N]`` candidates and a masked min-reduce — pure elementwise math
+plus a reduction, with no divergence.
 
 Semantics preserved exactly:
 - quadratic solve; a hit exists iff the discriminant >= 0
@@ -57,7 +57,7 @@ def intersect_spheres(origin, direction, radius, position):
     Numerics: the reference's quadratic ``b^2 - 4ac`` catastrophically
     cancels in f32 for the r=1e5 wall spheres (the CUDA code silently
     promotes the discriminant to double via its ``2.0 *`` literals —
-    ``pathtrace.cu:74-81``). TPU f32 gets equivalent accuracy from the
+    ``pathtrace.cu:74-81``). f32 gets equivalent accuracy here from the
     geometric (perpendicular-foot) decomposition: the closest-approach
     distance is formed by explicit vector subtraction instead of a
     difference of ~1e10-magnitude squares, so only grazing rays lose

@@ -1,39 +1,41 @@
-"""Pallas TPU megakernel: the fast forward path.
+"""Pallas megakernel on the Triton route: the fast forward path.
 
-This is the TPU re-design of the reference's ``pixel_kernel``
-(``src/pathtrace.cu:203-257``): one Pallas program instance owns an
-(8, 128)-aligned image tile held in VMEM, loops all spp in-register, unrolls
-the 5-bounce pipeline, and runs the 9-sphere intersection as straight-line
-VPU vector code over the whole tile. Sequential per-pixel Welford moments
-(the exact reference update, ``pathtrace.cu:39-65``) accumulate in VMEM;
-the only HBM traffic is the final (14, TH, TW) channel block per tile —
-the kernel is pure-compute-bound by design.
+The reference's ``pixel_kernel`` (``src/pathtrace.cu:203-257``) runs one
+CUDA thread per pixel in t x t blocks, loops all spp and the 5 bounces in
+registers, and writes each pixel's 14 channels once. This kernel keeps that
+shape: one Pallas program owns a power-of-two pixel tile (about one thread
+per pixel), loops all spp inside (``fori_loop``), unrolls the bounce
+pipeline and the 9-sphere nearest-hit chain, and updates the per-pixel
+Welford moments (the exact reference update, ``pathtrace.cu:39-65``) in
+registers. The only device-memory traffic is the scene/camera read and the
+final channel store per tile.
 
-RNG: counter-based in-kernel hashing (two rounds of the 'lowbias32'
-integer mixer) keyed on (seed, frame, global sample index, draw slot,
-absolute pixel coordinates). Pure VPU integer ops — no sequential state,
-so streams are independent of the tiling and of how spp is sharded, and
-identical under interpret mode. (The TPU hardware PRNG
-``pltpu.prng_random_bits`` was rejected: its streams would depend on the
-tile grid, and the Pallas interpreter stubs it to zeros.) The jnp backend
-draws from threefry instead; the two backends are statistically — not
-bitwise — equivalent, which the moment tests verify.
+RNG: counter-based in-kernel hashing (two rounds of the 'lowbias32' integer
+mixer, pathtrace_tpu/rng.py) keyed on (seed, frame, global sample index,
+draw slot, absolute pixel coordinates). Integer ops only, no sequential
+state, so streams are independent of the tiling and of how spp is sharded.
+The jnp backend draws from the same lattice (``rng.sample_uniforms``), so
+the two backends agree per pixel up to float rounding.
 
-Scene and camera parameters ride in SMEM and are read as scalars inside
-unrolled loops — no HBM loads in the hot path. Everything else matches
+Scene, camera and seed live in small global arrays padded to power-of-two
+blocks; each program reads them as scalars. Everything else matches
 ops/trace.py semantics exactly (first-bounce emission clamp, escape
 exclusion, bounce-0 AOVs, 0.05 origin push, cosine-weighted bounces).
+Route: Triton (``backend="triton"``); the work is FP32 and integer ALU
+work with no matrix products, so nothing here needs Mosaic GPU's wgmma or
+TMA.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Dict
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from pathtrace_tpu.config import RenderConfig
 from pathtrace_tpu.render import unpack_channels
@@ -45,8 +47,8 @@ LUMA_R, LUMA_G, LUMA_B = 0.2126, 0.7152, 0.0722
 
 
 # The RNG primitives are shared with the jnp path (pathtrace_tpu/rng.py):
-# pure int32 vector ops, Mosaic-compatible, so both backends draw from the
-# SAME (seed, frame, sample, slot, pixel) uniform lattice.
+# pure int32 ops, so both backends draw from the SAME (seed, frame, sample,
+# slot, pixel) uniform lattice.
 from pathtrace_tpu.rng import P_GOLD as _P_GOLD
 from pathtrace_tpu.rng import P_ROW as _P_ROW
 from pathtrace_tpu.rng import P_FRAME as _P_FRAME
@@ -59,7 +61,7 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 
 def read_scene_scalars(scene_ref, num_spheres: int):
-    """SMEM scene block -> tuple of per-sphere scalar tuples
+    """Scene block -> tuple of per-sphere scalar tuples
     (rad, px, py, pz, er, eg, eb, cr, cg, cb). Read once per kernel; the
     values live in registers across the spp loop."""
     return tuple(
@@ -68,7 +70,7 @@ def read_scene_scalars(scene_ref, num_spheres: int):
 
 
 def read_cam_scalars(cam_ref):
-    """SMEM camera block -> (eye xyz, 4x(basis xyz)) scalar tuples."""
+    """Camera block -> (eye xyz, 4x(basis xyz)) scalar tuples."""
     eye = (cam_ref[0, 0], cam_ref[0, 1], cam_ref[0, 2])
     basis = tuple(
         (cam_ref[k, 0], cam_ref[k, 1], cam_ref[k, 2]) for k in range(1, 5)
@@ -93,14 +95,10 @@ def trace_tile_sample(
     nee_light_index: int | None,
     brdf: str,
 ):
-    """ONE sample's full trajectory for a tile — a PURE function of the
-    scene/camera scalars, so ``jax.vjp`` of it inside a kernel yields the
-    exact same detached-decision gradient estimator as the jnp backend
-    (ops/trace.py) on the same lattice: discrete decisions (hit selection,
-    normal flip, shadow visibility, RNG) enter only through ``jnp.where``
-    conditions and are therefore AD-constants, while t, hit positions,
-    normals, the NEE Lambert term and the bounce directions all carry
-    derivatives. Shared by the forward megakernel and ops/pallas_ad.py.
+    """ONE sample's full trajectory for a tile — a pure function of the
+    scene/camera scalars with the same math as the jnp backend
+    (ops/trace.py) on the same lattice. Used by the megakernel and by the
+    op counter's mirror (utils/roofline.py).
 
     Returns (col_r, col_g, col_b, fn_x, fn_y, fn_z, fa_r, fa_g, fa_b, f_d,
     hit0, active) — per-tile arrays; AOV entries are zero off bounce-0 hits.
@@ -128,9 +126,6 @@ def trace_tile_sample(
     dx = bilerp_basis(0, u, v)
     dy = bilerp_basis(1, u, v)
     dz = bilerp_basis(2, u, v)
-    # broadcast_to, not jnp.full: the in-kernel-AD path (ops/pallas_ad.py)
-    # passes TILE-shaped parameters, and jnp.full of an already-array fill
-    # value lowers via device_put, which Mosaic cannot lower.
     ox = jnp.broadcast_to(eye_x, shape).astype(jnp.float32)
     oy = jnp.broadcast_to(eye_y, shape).astype(jnp.float32)
     oz = jnp.broadcast_to(eye_z, shape).astype(jnp.float32)
@@ -359,11 +354,10 @@ def trace_tile_sample(
 
 
 def _pathtrace_kernel(
-    scene_ref,  # SMEM [N, 10]: radius, pos xyz, emission rgb, color rgb
-    cam_ref,  # SMEM [5, 3]: eye pos; basis rays 00,10,01,11
-    seed_ref,  # SMEM [5]: seed, frame, sample offset, row offset, col offset
-    out_ref,  # VMEM [14, TH, TW]
-    *,
+    scene_ref,  # [16, 16] f32: rows = spheres; radius, pos xyz, emission rgb, color rgb
+    cam_ref,  # [8, 4] f32: row 0 eye pos; rows 1-4 basis rays 00,10,01,11
+    seed_ref,  # [8] i32: seed, frame, sample offset, row offset, col offset
+    *out_refs,  # n_ch x [TH, TW] f32
     num_spheres: int,
     spp: int,
     max_bounces: int,
@@ -376,7 +370,6 @@ def _pathtrace_kernel(
     nee_light_index: int | None = None,
     emit_partials: bool = False,
     brdf: str = "diffuse",
-    color_only: bool = False,
 ):
     ti = pl.program_id(0)
     tj = pl.program_id(1)
@@ -387,9 +380,7 @@ def _pathtrace_kernel(
     # The row/col offsets (seed_ref[3:5]) position this kernel's local slab
     # inside the GLOBAL image — the shard_map hook (parallel/shard.py): a
     # device rendering rows [off, off + local_h) draws exactly its slice of
-    # the global lattice, so sharded == single-chip bit-for-bit. This is the
-    # scaled version of the reference's CUDA grid (Renderer.h:29-33).
-    # (int32 iota only — Mosaic has no float iota; cast for the float path.)
+    # the global lattice, so sharded == single-device bit-for-bit.
     rows_i = jax.lax.broadcasted_iota(jnp.int32, shape, 0) + ti * tile_h + seed_ref[3]
     cols_i = jax.lax.broadcasted_iota(jnp.int32, shape, 1) + tj * tile_w + seed_ref[4]
     rows = rows_i.astype(jnp.float32)
@@ -418,31 +409,6 @@ def _pathtrace_kernel(
         nee_light_index=nee_light_index,
         brdf=brdf,
     )
-
-    if color_only:
-        # RAW color sums only (3 channels) — the fwd leg of the fused
-        # loss+grad paths, which never read the AOV/variance channels;
-        # skipping the Welford updates saves ~35% of the VPU work.
-        def color_body(s, carry):
-            s_u = sample_offset + s
-
-            def draw(slot):
-                dk = _mix32(
-                    base_key ^ ((s_u * n_slots + jnp.int32(slot)) * _P_GOLD)
-                )
-                return _uniform_01(pix_key, dk)
-
-            out = trace_tile_sample(
-                sc, eye, cam_basis, rows, cols, draw, **trace_kwargs
-            )
-            return (carry[0] + out[0], carry[1] + out[1], carry[2] + out[2])
-
-        sums = jax.lax.fori_loop(
-            0, spp, color_body, (zeros, zeros, zeros), unroll=False
-        )
-        for k in range(3):
-            out_ref[k] = sums[k]
-        return
 
     def sample_body(s, carry):
         s_u = sample_offset + s
@@ -512,68 +478,32 @@ def _pathtrace_kernel(
             n_d, mean_d, m2_d,
         )
 
-    init = (zeros,) * 10 + (zeros,) * 12
-    carry = jax.lax.fori_loop(0, spp, sample_body, init, unroll=False)
-    (
-        sum_cr, sum_cg, sum_cb,
-        sum_nx, sum_ny, sum_nz,
-        sum_ar, sum_ag, sum_ab,
-        sum_d,
-        n_c, mean_c, m2_c,
-        n_n, mean_n, m2_n,
-        n_a, mean_a, m2_a,
-        n_d, mean_d, m2_d,
-    ) = carry
+    carry = jax.lax.fori_loop(0, spp, sample_body, (zeros,) * 22)
 
     if emit_partials:
         # Shard/chunk-mergeable partials instead of finalized channels:
         # 10 raw sums + (n, mean, M2) per variance feature — exactly the
         # ops/variance.Moments monoid, so Chan merges across spp batches
         # (progressive.py) or mesh shards reproduce the monolithic render.
-        for k, v in enumerate(
-            (sum_cr, sum_cg, sum_cb, sum_nx, sum_ny, sum_nz,
-             sum_ar, sum_ag, sum_ab, sum_d,
-             n_c, mean_c, m2_c, n_n, mean_n, m2_n,
-             n_a, mean_a, m2_a, n_d, mean_d, m2_d)
-        ):
-            out_ref[k] = v
-        return
+        outs = carry
+    else:
+        inv_spp = 1.0 / spp
 
-    inv_spp = 1.0 / spp
+        def var(n, m2):
+            return jnp.where(n >= 2.0, m2 / jnp.maximum(n - 1.0, 1.0), 0.0)
 
-    def var(n, m2):
-        return jnp.where(n >= 2.0, m2 / jnp.maximum(n - 1.0, 1.0), 0.0)
-
-    out_ref[0] = sum_cr * inv_spp
-    out_ref[1] = sum_cg * inv_spp
-    out_ref[2] = sum_cb * inv_spp
-    out_ref[3] = sum_nx * inv_spp
-    out_ref[4] = sum_ny * inv_spp
-    out_ref[5] = sum_nz * inv_spp
-    out_ref[6] = sum_ar * inv_spp
-    out_ref[7] = sum_ag * inv_spp
-    out_ref[8] = sum_ab * inv_spp
-    out_ref[9] = sum_d * inv_spp
-    out_ref[10] = var(n_c, m2_c)
-    out_ref[11] = var(n_n, m2_n)
-    out_ref[12] = var(n_a, m2_a)
-    out_ref[13] = var(n_d, m2_d)
+        # carry[10:] is (n, mean, M2) for color, normal, albedo, depth.
+        outs = tuple(v * inv_spp for v in carry[:10]) + tuple(
+            var(carry[k], carry[k + 2]) for k in (10, 13, 16, 19)
+        )
+    for ref, v in zip(out_refs, outs):
+        ref[...] = v
 
 
-def interpret_param(interpret):
-    """Resolve the ``interpret`` knob used across the Pallas launch paths:
-    False = compile (Mosaic); True = the Mosaic TPU interpreter (exact
-    TPU semantics on CPU — the CI default); "jax" = the generic Pallas
-    interpreter. The generic mode exists because the Mosaic interpreter
-    deadlocks under a MULTI-PROCESS runtime (its device-emulation
-    semaphores wait forever on a mesh that spans OS processes, observed
-    with the 2-process gloo pod); its output is bit-identical for these
-    kernels (tests/multihost_worker.py relies on this)."""
-    if not interpret:
-        return False
-    if interpret == "jax":
-        return True
-    return pltpu.InterpretParams()
+# Small per-frame inputs, padded to power-of-two blocks for Triton.
+SCENE_BLOCK = (16, 16)
+CAM_BLOCK = (8, 4)
+SEED_BLOCK = 8
 
 
 def _pack_scene(scene) -> jnp.ndarray:
@@ -583,12 +513,16 @@ def _pack_scene(scene) -> jnp.ndarray:
     ).astype(jnp.float32)
 
 
+def _pad_to(x, shape):
+    return jnp.pad(x, [(0, s - d) for s, d in zip(shape, x.shape)])
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
 def make_seed_array(cfg: RenderConfig, frame, sample_offset=0, row_offset=0, col_offset=0):
-    """The kernel's SMEM scalar block: (seed, frame, sample/row/col offsets).
+    """The kernel's int32 scalar block: (seed, frame, sample/row/col offsets).
     frame and the offsets may be traced (e.g. ``axis_index`` under shard_map)."""
     return jnp.stack(
         [
@@ -601,14 +535,28 @@ def make_seed_array(cfg: RenderConfig, frame, sample_offset=0, row_offset=0, col
     )
 
 
-def tile_dims(cfg: RenderConfig, local_h: int | None = None, local_w: int | None = None):
-    """(tile_h, tile_w, pad_h, pad_w) for a (possibly partial) image slab."""
-    h = cfg.height if local_h is None else local_h
-    w = cfg.width if local_w is None else local_w
-    tile_h, tile_w = cfg.tile_shape
-    tile_h = max(8, min(tile_h, _round_up(h, 8)))
-    tile_w = max(128, _round_up(min(tile_w, w), 128))
-    return tile_h, tile_w, _round_up(h, tile_h), _round_up(w, tile_w)
+def launch_dims(height: int, width: int, threads_per_block: int):
+    """(tile edge t, warps per program, pad_h, pad_w) for a (possibly
+    partial) image slab. A t x t pixel tile on t*t/32 warps is one thread
+    per pixel, the reference's t x t CUDA block (include/Renderer.h:29-33);
+    the frame is padded up to whole tiles and cropped after the kernel."""
+    t = threads_per_block
+    if t < 1 or t & (t - 1):
+        raise ValueError(f"threads_per_block must be a power of two, got {t}")
+    return t, max(1, t * t // 32), _round_up(height, t), _round_up(width, t)
+
+
+def xla_kernel_cache_on() -> bool:
+    """Whether XLA's GPU kernel cache file is on, through JAX's persistent
+    cache (``jax_persistent_cache_enable_xla_caches``) or ``XLA_FLAGS``."""
+    if "--xla_gpu_kernel_cache_file" in os.environ.get("XLA_FLAGS", ""):
+        return True
+    flags = jax.config.jax_persistent_cache_enable_xla_caches or ""
+    return (
+        jax.config.jax_compilation_cache_dir is not None
+        and jax.config.jax_enable_compilation_cache
+        and (flags == "all" or "xla_gpu_kernel_cache_file" in flags)
+    )
 
 
 def _launch_pathtrace(
@@ -621,16 +569,35 @@ def _launch_pathtrace(
     local_h: int,
     emit_partials: bool,
     interpret: bool,
-    color_only: bool = False,
 ):
-    """Shared pallas_call plumbing for the megakernel (full frame or slab)."""
-    tile_h, tile_w, pad_h, pad_w = tile_dims(cfg, local_h)
-    scene_params = _pack_scene(scene)
+    """Shared pallas_call plumbing for the megakernel (full frame or slab)
+    -> [local_h, W, n_ch] with n_ch 22 (partials) or 14 (channels)."""
+    if scene.num_objects > SCENE_BLOCK[0]:
+        raise ValueError(
+            f"megakernel holds at most {SCENE_BLOCK[0]} spheres, got {scene.num_objects}"
+        )
+    if not interpret and xla_kernel_cache_on():
+        # On an H100 the megakernel returned wrong channels whenever this
+        # cache was on, whether every variant had a name of its own or not,
+        # and with one output array in place of fourteen (PERF.md). The
+        # cause lies in XLA's kernel cache path and is not isolated.
+        raise RuntimeError(
+            "the megakernel refuses to compile with XLA's GPU kernel cache "
+            "file on: it returned wrong channels with it. Set "
+            "jax_persistent_cache_enable_xla_caches to "
+            "'xla_gpu_per_fusion_autotune_cache_dir' (JAX's default) and drop "
+            "--xla_gpu_kernel_cache_file from XLA_FLAGS."
+        )
+    t, num_warps, pad_h, pad_w = launch_dims(local_h, cfg.width, cfg.threads_per_block)
+    scene_params = _pad_to(_pack_scene(scene), SCENE_BLOCK)
     basis = cam.eye_ray_basis(cfg.width, cfg.height)
-    cam_params = jnp.concatenate([cam.position[None, :], basis], axis=0)
+    cam_params = _pad_to(
+        jnp.concatenate([cam.position[None, :], basis], axis=0).astype(jnp.float32),
+        CAM_BLOCK,
+    )
+    seed_params = _pad_to(seed_arr, (SEED_BLOCK,))
 
-    n_ch = 3 if color_only else (22 if emit_partials else 14)
-    grid = (pad_h // tile_h, pad_w // tile_w)
+    n_ch = 22 if emit_partials else 14
     kernel = functools.partial(
         _pathtrace_kernel,
         num_spheres=scene.num_objects,
@@ -638,104 +605,61 @@ def _launch_pathtrace(
         max_bounces=cfg.max_bounces,
         jitter=cfg.resolved_jitter,
         push=cfg.push_ray_origin,
-        tile_h=tile_h,
-        tile_w=tile_w,
+        tile_h=t,
+        tile_w=t,
         height=cfg.height,
         width=cfg.width,
         nee_light_index=cfg.light_index if cfg.nee else None,
         emit_partials=emit_partials,
         brdf=cfg.brdf,
-        color_only=color_only,
     )
-    # Counted, not estimated: the roofline counter traces the kernel's own
-    # per-sample op sequence (utils/roofline.py; lru-cached per config).
-    # ~494 f32 flops + 60 int + 14 transcendental per segment for the
-    # diffuse Cornell config; NEE raises it to ~782 flops.
-    from pathtrace_tpu.utils.roofline import megakernel_ops
-
-    seg_ops = megakernel_ops(cfg, scene.num_objects)["per_segment"]
-    n_segments = pad_h * pad_w * spp * cfg.max_bounces
-    out = pl.pallas_call(
+    whole = lambda i, j: (0, 0)  # noqa: E731
+    outs = pl.pallas_call(
         kernel,
-        grid=grid,
+        grid=(pad_h // t, pad_w // t),
         in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
+            pl.BlockSpec(SCENE_BLOCK, whole),
+            pl.BlockSpec(CAM_BLOCK, whole),
+            pl.BlockSpec((SEED_BLOCK,), lambda i, j: (0,)),
         ],
-        out_specs=pl.BlockSpec(
-            (n_ch, tile_h, tile_w),
-            lambda i, j: (0, i, j),
-            memory_space=pltpu.VMEM,
-        ),
-        out_shape=jax.ShapeDtypeStruct((n_ch, pad_h, pad_w), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=int(seg_ops["flops"] * n_segments),
-            bytes_accessed=n_ch * pad_h * pad_w * 4,
-            transcendentals=int(seg_ops["transcendentals"] * n_segments),
-        ),
-        interpret=interpret_param(interpret),
-    )(scene_params, cam_params, seed_arr)
-    return out[:, :local_h, : cfg.width]
+        # One array per channel: Triton blocks must have power-of-two sizes,
+        # and 14 or 22 channels in one block would not.
+        out_specs=[pl.BlockSpec((t, t), lambda i, j: (i, j))] * n_ch,
+        out_shape=[jax.ShapeDtypeStruct((pad_h, pad_w), jnp.float32)] * n_ch,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name="pathtrace_megakernel",
+    )(scene_params, cam_params, seed_params)
+    return jnp.stack(outs, axis=-1)[:local_h, : cfg.width]
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "interpret"),
-)
+@functools.partial(jax.jit, static_argnames=("cfg", "interpret"))
 def render_channels_pallas(scene, cam, cfg: RenderConfig, frame=0, interpret=False):
     """Render via the Pallas megakernel -> packed [H, W, 14] buffer."""
     seed_arr = make_seed_array(cfg, frame)
-    out = _launch_pathtrace(
+    return _launch_pathtrace(
         scene, cam, cfg, seed_arr,
         spp=cfg.spp, local_h=cfg.height, emit_partials=False, interpret=interpret,
     )
-    return jnp.moveaxis(out, 0, -1)  # [H, W, 14]
 
 
 def render_aovs_pallas(scene, cam, cfg: RenderConfig, frame=0, interpret=False) -> Dict:
     return unpack_channels(render_channels_pallas(scene, cam, cfg, frame, interpret))
 
 
-def render_color_sums_pallas(
-    scene,
-    cam,
-    cfg: RenderConfig,
-    frame,
-    row_offset=0,
-    local_h: int | None = None,
-    spp: int | None = None,
-    sample_offset=0,
-    interpret: bool = False,
-):
-    """RAW color sums [local_h, W, 3] over the slab's sample range — the
-    color-only megakernel mode (no AOV/Welford work). Divide by the GLOBAL
-    spp after any cross-shard psum. Not jitted — compose inside jit/shard_map."""
-    local_h = cfg.height if local_h is None else local_h
-    spp = cfg.spp if spp is None else spp
-    seed_arr = make_seed_array(cfg, frame, sample_offset, row_offset)
-    out = _launch_pathtrace(
-        scene, cam, cfg, seed_arr,
-        spp=spp, local_h=local_h, emit_partials=False, interpret=interpret,
-        color_only=True,
-    )
-    return jnp.moveaxis(out, 0, -1)
-
-
 def _partials_from_block(out):
     from pathtrace_tpu.ops.variance import Moments
 
     sums = {
-        "color": jnp.moveaxis(out[0:3], 0, -1),
-        "normal": jnp.moveaxis(out[3:6], 0, -1),
-        "albedo": jnp.moveaxis(out[6:9], 0, -1),
-        "depth": out[9],
+        "color": out[..., 0:3],
+        "normal": out[..., 3:6],
+        "albedo": out[..., 6:9],
+        "depth": out[..., 9],
     }
     moments = {
-        "color": Moments(out[10], out[11], out[12]),
-        "normal": Moments(out[13], out[14], out[15]),
-        "albedo": Moments(out[16], out[17], out[18]),
-        "depth": Moments(out[19], out[20], out[21]),
+        name: Moments(out[..., k], out[..., k + 1], out[..., k + 2])
+        for name, k in (("color", 10), ("normal", 13), ("albedo", 16), ("depth", 19))
     }
     return sums, moments
 
@@ -776,8 +700,8 @@ def render_partials_pallas(
     the same contract as ``render.accumulate_frame``: sums are RAW channel
     sums over ``cfg.spp`` samples at global sample offsets
     [sample_offset, sample_offset + spp); moments are per-feature Welford
-    ``Moments(n, mean, m2)``. Feeding progressive accumulation
-    (progressive.py) and spp sharding at full kernel speed."""
+    ``Moments(n, mean, m2)``. Feeds progressive accumulation
+    (progressive.py) at full kernel speed."""
     return accumulate_frame_pallas(
         scene, cam, cfg, frame, sample_offset=sample_offset, interpret=interpret
     )

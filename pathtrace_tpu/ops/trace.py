@@ -1,7 +1,7 @@
 """The wavefront bounce pipeline — the heart of the renderer.
 
 The reference's ``trace_ray`` (``src/pathtrace.cu:150-201``) is a per-thread
-loop with early returns. Its TPU-native re-design is a dense, branch-free
+loop with early returns. Its array re-design is a dense, branch-free
 pipeline: the bounce loop is unrolled to the compile-time depth
 (MAX_BOUNCES = 5 in the reference too), every ray in the ``[...]`` batch
 steps in lockstep, and per-ray divergence (escape, termination) becomes an

@@ -1,18 +1,17 @@
 """Device mesh construction + multi-host runtime.
 
 The reference's entire multi-device story is ``cudaSetDevice(N)``
-(``src/main.cu:86``) — one GPU, no communication. The TPU-native design
+(``src/main.cu:86``) — one GPU, no communication. This design
 (SURVEY.md §2.3) scales over a 2-D logical mesh:
 
-  - axis "tiles":   image row-slabs (pixel parallelism across chips)
-  - axis "samples": spp ranges (sample parallelism across chips)
+  - axis "tiles":   image row-slabs (pixel parallelism across devices)
+  - axis "samples": spp ranges (sample parallelism across devices)
 
 Collectives: AOV sums merge with ``psum`` over "samples"; Welford partial
 moments merge with Chan's associative formula (an ``all_gather`` + fold —
-the merge is not a plain sum). Gradient all-reduce over both axes. On a
-real pod the mesh should be laid out so "samples" rides ICI neighbors
-(cheap, large psum traffic) while "tiles" can span DCN (output slabs never
-move).
+the merge is not a plain sum). Gradient all-reduce over both axes. The
+cards of one host reach each other all to all over NVLink, so the mesh
+follows the algorithm alone.
 
 Multi-host: ``jax.distributed.initialize`` + the standard
 process-spanning ``Mesh``; single-process CPU testing uses
@@ -36,8 +35,8 @@ def initialize_multihost(
 ):
     """Bring up the JAX multi-host runtime (no-op if single-process).
 
-    Mirrors the standard TPU pod bootstrap; parameters fall back to the
-    JAX_* / cloud-TPU environment when omitted. Fails loudly — the
+    ``jax.distributed.initialize`` with an explicit coordinator, process
+    count and id (nothing in the environment is assumed). Fails loudly — the
     reference's crash-fast error philosophy (SURVEY.md §5).
     """
     if num_processes is None:

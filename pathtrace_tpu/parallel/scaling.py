@@ -54,7 +54,7 @@ def measure_scaling(
         mesh = make_mesh(
             tiles=n // samples, samples=samples, devices=all_devices[:n]
         )
-        secs, _ = time_fn(
+        secs, _, _ = time_fn(
             lambda f, m=mesh: render_channels_sharded(scene, cam, cfg, m, f),
             0,
             warmup=1,

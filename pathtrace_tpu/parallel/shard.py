@@ -1,6 +1,6 @@
 """SPMD rendering over a ("tiles", "samples") mesh via shard_map.
 
-TPU-native replacement for the reference's single-GPU CUDA grid
+The multi-device extension of the reference's single-GPU CUDA grid
 (``include/Renderer.h:29-33``): each device renders one image row-slab
 (axis "tiles") for one spp range (axis "samples") of the SAME global
 counter-based sample lattice (pathtrace_tpu/rng.py), then
@@ -13,7 +13,7 @@ counter-based sample lattice (pathtrace_tpu/rng.py), then
     overlaps these collectives with the remaining backward sweep.
 
 Because the RNG lattice is keyed on absolute (pixel, sample) coordinates,
-ANY mesh shape produces bit-identical sums to a single chip (up to float
+ANY mesh shape produces the same sums as a single device (up to float
 reassociation in the merges) — verified by tests/test_sharding.py.
 """
 
@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
+from pathtrace_tpu.backend import resolve_backend
 from pathtrace_tpu.config import RenderConfig
 from pathtrace_tpu.ops.variance import Moments, merge_moments
 from pathtrace_tpu.render import (
@@ -52,12 +53,6 @@ def _merge_over_axis(moments, axis_name: str, axis_size: int):
     return out
 
 
-def _resolve_backend(cfg: RenderConfig) -> str:
-    if cfg.backend == "auto":
-        return "pallas" if jax.default_backend() == "tpu" else "jnp"
-    return cfg.backend
-
-
 @functools.lru_cache(maxsize=32)
 def _build_sharded_render(cfg: RenderConfig, mesh: Mesh, interpret: bool = False):
     n_t = mesh.shape["tiles"]
@@ -68,13 +63,13 @@ def _build_sharded_render(cfg: RenderConfig, mesh: Mesh, interpret: bool = False
         raise ValueError(f"spp {cfg.spp} not divisible by samples={n_s}")
     local_h = cfg.height // n_t
     local_spp = cfg.spp // n_s
-    backend = _resolve_backend(cfg)
+    backend = resolve_backend(cfg.backend, interpret)
 
     def shard_fn(scene, cam, frame):
         ti = jax.lax.axis_index("tiles")
         si = jax.lax.axis_index("samples")
         if backend == "pallas":
-            # The megakernel itself runs on every chip: its RNG is keyed on
+            # The megakernel itself runs on every device: its RNG is keyed on
             # absolute (pixel, sample) coordinates carried in via the
             # row/sample offsets, so each device computes exactly its slice
             # of the single-chip lattice at full kernel speed.
@@ -120,7 +115,7 @@ def render_channels_sharded(
     scene, cam, cfg: RenderConfig, mesh: Mesh, frame=0, interpret: bool = False
 ):
     """Render the packed [H, W, 14] buffer over the mesh (sharded by rows).
-    ``interpret`` runs the Pallas kernel in interpreter mode (CPU-mesh CI)."""
+    ``interpret`` runs the Pallas kernel in the interpreter (CPU meshes)."""
     frame = jnp.asarray(frame, jnp.int32)
     return _build_sharded_render(cfg, mesh, interpret)(scene, cam, frame)
 
@@ -134,124 +129,13 @@ def render_aovs_sharded(
 
 
 @functools.lru_cache(maxsize=32)
-def _build_sharded_grads(cfg: RenderConfig, mesh: Mesh, interpret: bool = False):
+def _build_sharded_grads(cfg: RenderConfig, mesh: Mesh):
     n_t = mesh.shape["tiles"]
     n_s = mesh.shape["samples"]
     if cfg.height % n_t or cfg.spp % n_s:
         raise ValueError("height/spp must divide the mesh axes")
-    if interpret is True and n_t * n_s > 1:
-        # The Mosaic TPU interpreter's device-emulation semaphores wedge
-        # for the multi-output grad kernels on a multi-device mesh (the
-        # single-process sibling of its documented multi-process deadlock,
-        # ops/pallas_trace.interpret_param). The generic Pallas
-        # interpreter is bit-identical for these kernels
-        # (tests/test_pallas.py interpreter-equivalence).
-        interpret = "jax"
     local_h = cfg.height // n_t
     local_spp = cfg.spp // n_s
-    backend = _resolve_backend(cfg)
-
-    def shard_fn_pallas(scene, cam, target, frame):
-        # All-Pallas SPMD fwd+bwd. Shared structure: each device owns a
-        # (row-slab, spp-range) shard of the global lattice; the loss
-        # cotangent needs the GLOBAL mean color, which no device can know
-        # before a psum over "samples"; gradients psum over both axes and
-        # XLA overlaps the all-reduce with remaining compute. The
-        # per-config backward picks the cheapest exact kernel
-        # (dispatch mirror of ops/pallas_grad.pallas_loss_and_grads):
-        #
-        # - diffuse/no-NEE: ONE dump-mode trajectory pass per shard
-        #   (_fused_loss_grad_kernel mode="dump") emits the local color
-        #   AND per-pixel cotangent-free gradient accumulators; after the
-        #   color psum the cotangent contraction is a cheap jnp epilogue —
-        #   no second pass, the sharded step costs what the fused
-        #   single-chip kernel costs.
-        # - NEE diffuse: color pass -> psum -> hand-derived replay sweep
-        #   (ops/pallas_nee_grad.py) — ~60% of the vjp replay's ops.
-        # - glossy: color pass -> psum -> in-kernel-AD replay
-        #   (ops/pallas_ad.py), the generic fallback.
-        #
-        # The reference has no analog (single GPU, no gradients); this is
-        # BASELINE.json's north star.
-        from pathtrace_tpu.camera import Camera
-        from pathtrace_tpu.ops.pallas_ad import grads_from_block
-        from pathtrace_tpu.scene import Scene
-
-        ti = jax.lax.axis_index("tiles")
-        si = jax.lax.axis_index("samples")
-        denom = cfg.height * cfg.width * 3
-
-        if not cfg.nee and cfg.brdf == "diffuse":
-            from pathtrace_tpu.ops.pallas_grad import grad_acc_slab
-
-            local_color, acc = grad_acc_slab(
-                scene, cam, cfg, frame,
-                row_offset=ti * local_h, local_h=local_h,
-                spp=local_spp, sample_offset=si * local_spp,
-                interpret=interpret,
-            )
-            # local_color/acc are LOCAL-spp means; rescale to the global
-            # spp average before the samples psum.
-            scale = local_spp / cfg.spp
-            color = jax.lax.psum(local_color * scale, "samples")
-            diff = color - target
-            loss = jax.lax.psum(jnp.sum(diff * diff), "tiles") / denom
-            ct = 2.0 * diff / denom * scale
-            n = scene.num_objects
-            ct6 = jnp.tile(ct, (1, 1, 2 * n))
-            g = jnp.sum(ct6 * acc, axis=(0, 1)).reshape(n, 6)
-            g = jax.lax.psum(g, ("tiles", "samples"))
-            d_scene = Scene(
-                radius=jnp.zeros_like(scene.radius),
-                position=jnp.zeros_like(scene.position),
-                emission=g[:, 0:3],
-                color=g[:, 3:6],
-            )
-            d_cam = Camera(
-                position=jnp.zeros_like(cam.position),
-                yaw=jnp.zeros_like(cam.yaw),
-                pitch=jnp.zeros_like(cam.pitch),
-            )
-            return loss, (d_scene, d_cam)
-
-        from pathtrace_tpu.ops.pallas_trace import render_color_sums_pallas
-
-        sums = render_color_sums_pallas(
-            scene, cam, cfg, frame,
-            row_offset=ti * local_h, local_h=local_h,
-            spp=local_spp, sample_offset=si * local_spp,
-            interpret=interpret,
-        )
-        color = jax.lax.psum(sums, "samples") / cfg.spp  # [local_h, W, 3]
-        diff = color - target
-        loss = jax.lax.psum(jnp.sum(diff * diff), "tiles") / denom
-        if cfg.brdf == "diffuse":
-            from pathtrace_tpu.ops.pallas_nee_grad import nee_grads_block_slab
-
-            ct = jnp.moveaxis(2.0 * diff / denom / cfg.spp, -1, 0)
-            block = nee_grads_block_slab(
-                scene, cam, cfg, frame, ct,
-                row_offset=ti * local_h, local_h=local_h,
-                spp=local_spp, sample_offset=si * local_spp,
-                interpret=interpret,
-            )
-        else:
-            from pathtrace_tpu.ops.pallas_ad import (
-                ad_grads_block_slab,
-                pack_cotangents,
-            )
-
-            ct_block = pack_cotangents(
-                cfg, ct_color=2.0 * diff / denom, local_h=local_h
-            )
-            block = ad_grads_block_slab(
-                scene, cam, cfg, frame, ct_block,
-                row_offset=ti * local_h, local_h=local_h,
-                spp=local_spp, sample_offset=si * local_spp,
-                interpret=interpret,
-            )
-        block = jax.lax.psum(block, ("tiles", "samples"))
-        return loss, grads_from_block(scene, cam, cfg, block)
 
     def shard_fn(scene, cam, target, frame):
         ti = jax.lax.axis_index("tiles")
@@ -290,7 +174,7 @@ def _build_sharded_grads(cfg: RenderConfig, mesh: Mesh, interpret: bool = False)
         return loss, grads
 
     mapped = shard_map(
-        shard_fn_pallas if backend == "pallas" else shard_fn,
+        shard_fn,
         mesh=mesh,
         in_specs=(P(), P(), P("tiles", None, None), P()),
         out_specs=(P(), (P(), P())),
@@ -299,15 +183,11 @@ def _build_sharded_grads(cfg: RenderConfig, mesh: Mesh, interpret: bool = False)
     return jax.jit(mapped)
 
 
-def sharded_loss_grads(
-    scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame=0,
-    interpret: bool = False,
-):
+def sharded_loss_grads(scene, cam, cfg: RenderConfig, mesh: Mesh, target, frame=0):
     """(loss, (d_scene, d_camera)) of the global L2 pixel loss, computed
     SPMD over the mesh with gradient all-reduce. ``target`` is the full
-    [H, W, 3] image (sharded by rows internally). ``cfg.backend`` picks the
-    in-shard engine: "jnp" differentiates the wavefront tracer with jax AD;
-    "pallas" runs the megakernel + in-kernel-AD replay (same estimator,
-    same lattice, kernel speed)."""
+    [H, W, 3] image (sharded by rows internally). Each shard differentiates
+    the jnp wavefront tracer with ``jax.vjp``, whatever ``cfg.backend``
+    says: the megakernel has no backward."""
     frame = jnp.asarray(frame, jnp.int32)
-    return _build_sharded_grads(cfg, mesh, interpret)(scene, cam, target, frame)
+    return _build_sharded_grads(cfg, mesh)(scene, cam, target, frame)

@@ -23,6 +23,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from pathtrace_tpu.backend import resolve_backend
 from pathtrace_tpu.config import RenderConfig
 from pathtrace_tpu.ops.variance import Moments, merge_moments
 from pathtrace_tpu.render import accumulate_frame, finalize_aovs
@@ -61,10 +62,7 @@ class ProgressiveRenderer:
     def accumulate(self, spp: int):
         """Trace ``spp`` more samples (global offsets continue where the
         last batch ended — identical lattice to a monolithic render)."""
-        backend = self.cfg.backend
-        if backend == "auto":
-            backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-        if backend == "pallas" and self.cfg.brdf == "diffuse":
+        if resolve_backend(self.cfg.backend) == "pallas":
             # Full-kernel-speed partials: the megakernel emits the raw
             # sums + Welford Moments directly (emit_partials mode).
             from pathtrace_tpu.ops.pallas_trace import render_partials_pallas

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from pathtrace_tpu import camera as camera_lib
 from pathtrace_tpu import rng
+from pathtrace_tpu.backend import resolve_backend
 from pathtrace_tpu.config import RenderConfig
 from pathtrace_tpu.ops import variance as var_lib
 from pathtrace_tpu.ops.trace import trace_paths
@@ -213,10 +214,7 @@ def _render_aovs_jnp(scene, cam, cfg: RenderConfig, frame):
 
 def render_aovs(scene, cam, cfg: RenderConfig, frame=0) -> Dict[str, jnp.ndarray]:
     """Render one frame -> dict of AOVs (each [H, W, C] or [H, W])."""
-    backend = cfg.backend
-    if backend == "auto":
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    if backend == "pallas":
+    if resolve_backend(cfg.backend) == "pallas":
         from pathtrace_tpu.ops import pallas_trace
 
         return pallas_trace.render_aovs_pallas(scene, cam, cfg, frame)

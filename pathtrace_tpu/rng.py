@@ -15,10 +15,9 @@ rounds of the public-domain 'lowbias32' integer mixer. Properties:
   exactly its slice of the global lattice, so sharded and single-chip
   renders are bit-identical;
 - backend-identical: the Pallas megakernel (ops/pallas_trace.py) inlines
-  the same mixer, so the jnp oracle and the TPU kernel consume the *same*
-  random numbers;
-- cheap on the VPU: integer mul/xor/shift only (Mosaic-compatible int32
-  with logical shifts);
+  the same mixer, so the jnp reference and the GPU kernel consume the
+  *same* random numbers;
+- cheap: int32 mul/xor/shift only, with logical shifts;
 - frame-to-frame progression (the reference's persistent curand state) is
   just the ``frame`` counter.
 

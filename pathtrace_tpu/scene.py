@@ -1,7 +1,7 @@
 """Scene data model: spheres as a struct-of-arrays pytree.
 
 The reference stores an array-of-structs ``Sphere{radius, pos, emission,
-color}`` on the GPU (``include/Scene.h:7-37``). On TPU the idiomatic layout is
+color}`` on the GPU (``include/Scene.h:7-37``). In JAX the idiomatic layout is
 struct-of-arrays so each field maps to a dense vector op across all objects;
 as a pytree it is also directly differentiable (gradients w.r.t. every sphere
 parameter) and shardable.

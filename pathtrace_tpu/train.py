@@ -1,7 +1,7 @@
 """Denoise-CNN trainer.
 
 Reimplements the reference training loop (``denoise_cnn/train.py:78-120``)
-TPU-natively:
+in JAX:
 
 - loss: mean L1 (``train.py:95``);
 - optimizer: SGD lr=0.01, momentum 0.9, nesterov (``train.py:97``);
@@ -13,7 +13,7 @@ TPU-natively:
   reference's own quirk, ``train.py:40-43``), preview PNG dump, and a
   checkpoint; ``--resume``/``--resume-epoch`` restore (``train.py:80-108``).
 
-TPU-native differences: data is rendered in-process (no EXR round trip,
+Differences: data is rendered in-process (no EXR round trip,
 pathtrace_tpu/data/collect.py), training steps are jitted with batch-DP
 sharding over all local devices, and checkpoints are orbax (params +
 batch_stats + optimizer state + plateau state), not pickled whole modules.

@@ -1,7 +1,7 @@
 """Debug / sanitizer mode.
 
 The reference's entire sanitizer story is the ``gpuErrchk`` exit-on-error
-macro (``include/CudaErrorCheck.h:6-14``). The TPU equivalents (SURVEY.md
+macro (``include/CudaErrorCheck.h:6-14``). The JAX equivalents (SURVEY.md
 §5): XLA programs are race-free by construction; numerical failures are
 caught with ``jax.debug_nans`` (any NaN in any jitted op aborts with a
 traceback) and ``checkify`` assertions on renderer invariants.

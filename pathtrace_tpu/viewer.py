@@ -2,7 +2,7 @@
 
 The reference's display is a GLFW/OpenGL window with WASD movement, mouse
 look, TAB denoising toggle, SPACE pose dump and ESC quit
-(``include/Window.h:16-193``). The TPU runtime is headless, so the viewer
+(``include/Window.h:16-193``). The renderer runs headless, so the viewer
 is a zero-dependency HTTP server (stdlib ``http.server``) + one HTML page:
 the browser captures the same keys/mouse, POSTs them to ``/step``, and the
 server advances the jitted ``FrameStepper`` one frame and replies with a

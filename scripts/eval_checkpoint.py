@@ -9,7 +9,7 @@ checkpointed CNN, and reports both PSNR conventions side by side:
 - standard MSE PSNR.
 
 Saves noisy/denoised/gt PNGs next to --out-prefix. Used to produce the
-numbers and images in docs/E2E_TPU_RUN.md.
+numbers and images in docs/E2E_RUN.md.
 
 Usage: python scripts/eval_checkpoint.py results/<run_dir>
            [--size 512] [--spp-gt 20000] [--out-prefix docs/ref]
@@ -59,10 +59,10 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     from pathtrace_tpu import RenderConfig, cornell_box
+    from pathtrace_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from pathtrace_tpu.data.collect import render_pair
     from pathtrace_tpu.models.infer import _denoise_jit
     from pathtrace_tpu.models.preprocess import preprocess_target

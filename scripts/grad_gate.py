@@ -1,31 +1,22 @@
-"""Device-scale gradient gate (BASELINE config #3: Cornell 512^2 x 32 spp).
+"""Device-scale gradient gate (Cornell 512^2 x 32 spp x 5 bounces).
 
-Phase B — run ON TPU after ``scripts/grad_oracle_cpu.py`` (phase A, CPU)
+Phase B — run on the GPU after ``scripts/grad_oracle_cpu.py`` (phase A, CPU)
 has produced ``results/grad_oracle/oracle.npz``. Writes docs/GRAD_GATE.md:
 
-1. Pallas fused hand-derived kernel vs jnp AD (diffuse MSE): shading
-   gradients, f32-vs-f32 on the same lattice — tight 5e-3.
-2. Full parameters under NEE vs the f64 frozen-replay oracle: for each
+1. Full parameters under NEE vs the f64 frozen-replay oracle: for each
    parameter block, the error of (a) the f32 replay on the oracle's own
-   decisions — the same-platform f32 ACCUMULATION noise floor of this
-   estimator at this scale, (b) the jnp-backend f32 AD (TPU), and (c) the
-   Pallas in-kernel-AD kernel (TPU). The jnp-TPU column is the measured
-   CROSS-PLATFORM floor: it is bitwise the estimator that recorded the
-   oracle (tests/test_frozen.py asserts record == live renderer on one
-   platform), so its distance from the oracle is pure platform delta —
-   f32 arithmetic differences (fma/rsqrt contraction; 97% of pixels drift
-   > 1e-4 between the TPU and CPU forwards) plus borderline decision
-   flips, both amplified by the geometry blocks' heavy cancellation (the
-   r=1e5 walls cancel those sums to ~1e-2 of their gross terms). Gate:
-   the Pallas error must sit within the worse of the floors —
-   <= max(e_jnp_tpu, 2 x floor_cpu, 5e-3) — and e_jnp_tpu is itself
-   bounded at max(10 x max(floor_cpu, floor_tpu_replay), 2e-2), where
-   floor_tpu_replay is measured by replaying the oracle's own decisions
-   in f32 ON TPU (decision flips excluded; pure arithmetic drift), so a
-   regression in the shared jnp path FAILs instead of widening the gate.
-   In practice the Kahan-summed Pallas kernel beats XLA's own AD by 2-6x
-   on every block.
-3. Finite differences: shading parameters FD the raw Pallas loss directly
+   decisions on the CPU — the same-platform f32 ACCUMULATION noise floor of
+   this estimator at this scale, (b) the same f32 replay on this device —
+   pure cross-platform arithmetic drift with decision flips excluded, and
+   (c) the jnp-backend f32 AD (``grad.render_loss_grads``) on this device,
+   which is the estimator that recorded the oracle (tests/test_frozen.py),
+   so its distance from the oracle is platform delta: f32 arithmetic
+   differences (fma/rsqrt contraction) plus borderline decision flips,
+   amplified by the geometry blocks' heavy cancellation (the r=1e5 walls
+   cancel those sums to ~1e-2 of their gross terms). Gate: the jnp error
+   is bounded at max(10 x max(floor_cpu, floor_replay), 2e-2), so a
+   regression in the gradient path FAILs.
+2. Finite differences: shading parameters FD the jnp loss directly
    (linear paths, no discrete sensitivity); geometry/camera parameters are
    validated PER-PIXEL on the FROZEN-DECISION replay in f64 (phase A):
    forward-mode derivative vs central FD of the color image, gated on the
@@ -72,15 +63,11 @@ def main() -> int:
 
     from pathtrace_tpu import Camera, RenderConfig, cornell_box
     from pathtrace_tpu.grad import render_loss_grads
-    from pathtrace_tpu.ops.pallas_ad import ad_loss_and_grads_pallas
-    from pathtrace_tpu.ops.pallas_grad import pallas_loss_and_grads
 
     backend = jax.default_backend()
     scene, cam = cornell_box(), Camera.create()
     S, SPP = args.size, args.spp
-    cfg_p = RenderConfig(width=S, height=S, spp=SPP, backend="pallas", spp_chunk=8)
-    cfg_j = dataclasses.replace(cfg_p, backend="jnp")
-    cfg_pn = dataclasses.replace(cfg_p, nee=True)
+    cfg_j = RenderConfig(width=S, height=S, spp=SPP, backend="jnp", spp_chunk=8)
     cfg_jn = dataclasses.replace(cfg_j, nee=True)
     target = jnp.zeros((S, S, 3), jnp.float32)
 
@@ -111,7 +98,7 @@ def main() -> int:
     # decisions, run on THIS backend, isolates cross-platform arithmetic
     # drift from borderline decision flips — the honest platform floor.
     dec_path = os.path.join(os.path.dirname(args.oracle) or ".", "decisions.npz")
-    recs_tpu = None
+    recs_dev = None
     if os.path.exists(dec_path):
         from pathtrace_tpu.ops.frozen import Decisions
 
@@ -120,7 +107,7 @@ def main() -> int:
         # it exactly like the oracle's — adjacency to oracle.npz is not
         # proof the pair was generated together (the two files are written
         # at different times; an interrupted regeneration could mismatch
-        # them and silently shift the TPU-replay floor).
+        # them and silently shift the device-replay floor).
         if "size" in dec.files:
             d_expect = {
                 "size": S, "spp": SPP, "seed": cfg_jn.seed,
@@ -134,7 +121,7 @@ def main() -> int:
         else:
             print("WARNING: legacy decisions.npz without config stamp — "
                   "re-run scripts/grad_oracle_cpu.py to regenerate the pair")
-        recs_tpu = [
+        recs_dev = [
             Decisions(
                 idx=jnp.asarray(dec[f"c{i}_idx"], jnp.int32),
                 use_near=jnp.asarray(dec[f"c{i}_use_near"], bool),
@@ -148,9 +135,9 @@ def main() -> int:
     lines = [
         "# GRAD GATE — device-scale gradient validation",
         "",
-        f"Backend: **{backend}** · config: Cornell {S}^2 x {SPP} spp x 5 bounces "
-        f"(BASELINE config #3) · generated by `scripts/grad_gate.py` on "
-        + time.strftime("%Y-%m-%d"),
+        f"Backend: **{backend}** ({jax.devices()[0].device_kind}) · config: "
+        f"Cornell {S}^2 x {SPP} spp x 5 bounces · generated by "
+        "`scripts/grad_gate.py` on " + time.strftime("%Y-%m-%d"),
         "",
         "Oracle: the frozen-decision replay (ops/frozen.py) of this exact",
         "sample lattice, differentiated in **float64** on CPU",
@@ -159,77 +146,32 @@ def main() -> int:
         "accumulation error instead of f32's percent-level noise on the",
         "heavy-cancellation geometry sums.",
         "",
-        "## 1. Pallas fused kernel vs jnp AD (diffuse MSE loss)",
+        "## 1. Full parameters under NEE vs the f64 oracle",
         "",
-        "Shading-parameter gradients, f32 vs f32 on the same lattice",
-        "(threshold 5e-3 — pure reassociation noise):",
+        "Per parameter block, max rel error vs the f64 oracle of: the f32",
+        "replay on the oracle's own decisions on the CPU (the same-platform",
+        "f32 accumulation floor), the same replay on this device (pure",
+        "cross-platform arithmetic drift, decision flips excluded), and",
+        "jax.grad of the jnp tracer on this device (arithmetic drift plus",
+        "borderline decision flips). Gate: jnp error <= max(10 x the worse",
+        "floor, 2e-2).",
         "",
+        "| block | f32 floor (CPU) | f32 replay (device) | jnp AD (device) "
+        "| gate | pass |",
+        "|---|---|---|---|---|---|",
     ]
     ok = True
-    if recs_tpu is None:
+    if recs_dev is None:
         print(
-            "WARNING: no decisions.npz next to the oracle — the TPU-replay "
+            "WARNING: no decisions.npz next to the oracle — the device-replay "
             "floor column will be empty (re-run scripts/grad_oracle_cpu.py)"
         )
 
-    loss_j, (ds_j, dc_j) = jax.block_until_ready(
+    _, (ds_j, _) = jax.block_until_ready(
         render_loss_grads(scene, cam, cfg_j, 0, target)
     )
-    loss_p, (ds_p, dc_p) = jax.block_until_ready(
-        pallas_loss_and_grads(scene, cam, cfg_p, 0, target)
-    )
-    rows = [
-        ("loss", rel_err(loss_p, loss_j)),
-        ("d emission", rel_err(ds_p.emission, ds_j.emission)),
-        ("d albedo", rel_err(ds_p.color, ds_j.color)),
-    ]
-    lines.append("| quantity | max rel err | pass |")
-    lines.append("|---|---|---|")
-    for name, e in rows:
-        good = e < 5e-3
-        ok &= good
-        lines.append(f"| {name} | {e:.2e} | {'PASS' if good else 'FAIL'} |")
-
-    # -- 2. full parameters vs the f64 oracle --------------------------------
-    lines += [
-        "",
-        "## 2. Full parameters under NEE vs the f64 oracle",
-        "",
-        "Per parameter block, max rel error vs the f64 oracle of: the f32",
-        "replay run on the oracle's own decisions ON CPU (= the",
-        "SAME-PLATFORM f32 accumulation floor), the SAME f32 replay run on",
-        "the oracle's decisions ON TPU (= pure cross-platform arithmetic",
-        "drift — fma/rsqrt contraction — with decision flips structurally",
-        "excluded), the jnp-backend f32 AD on TPU (arithmetic drift PLUS",
-        "borderline decision flips, amplified by the geometry blocks'",
-        "heavy cancellation), and the Pallas in-kernel-AD kernel (Kahan",
-        "spp accumulation + per-tile blocks tree-summed, ops/pallas_ad.py).",
-        "",
-        "Gate: Pallas error <= max(jnp-TPU error, 2 x cpu floor, 5e-3) —",
-        "the kernel must sit at least as close to the f64 oracle as the",
-        "platform's own trusted estimator — AND the jnp-TPU allowance is",
-        "itself bounded at max(10 x max(cpu floor, tpu-replay floor), 2e-2):",
-        "a regression in the shared jnp gradient path cannot inflate its",
-        "own gate into a PASS (it FAILs the block instead).",
-        "",
-        "| block | f32 floor (CPU) | f32 replay (TPU) | jnp AD (TPU) "
-        "| Pallas AD (TPU) | Pallas hand sweep (TPU) | gate | pass |",
-        "|---|---|---|---|---|---|---|---|",
-    ]
-
-    loss_jn, (ds_jn, dc_jn) = jax.block_until_ready(
+    _, (ds_jn, dc_jn) = jax.block_until_ready(
         render_loss_grads(scene, cam, cfg_jn, 0, target)
-    )
-    loss_pn, (ds_pn, dc_pn) = jax.block_until_ready(
-        ad_loss_and_grads_pallas(scene, cam, cfg_pn, 0, target)
-    )
-    # The r5 hand-derived single-pass NEE sweep (ops/pallas_nee_grad.py) —
-    # the production dispatch for this config — gates against the SAME f64
-    # oracle alongside the generic AD kernel.
-    from pathtrace_tpu.ops.pallas_nee_grad import nee_loss_and_grads_pallas
-
-    loss_hn, (ds_hn, dc_hn) = jax.block_until_ready(
-        nee_loss_and_grads_pallas(scene, cam, cfg_pn, 0, target)
     )
 
     # f32 replay of the ORACLE'S OWN decisions on this backend: pure
@@ -238,38 +180,32 @@ def main() -> int:
     # platform floor that bounds the jnp-AD allowance (ADVICE r2: without
     # it a regression in the shared jnp path inflates its own gate).
     ds_rep = dc_rep = None
-    if recs_tpu is not None:
+    if recs_dev is not None:
         from pathtrace_tpu.ops.frozen import replay_loss_grads
 
         cfg_rep = dataclasses.replace(cfg_jn, spp_chunk=oracle_spp_chunk)
         _, (ds_rep, dc_rep) = jax.block_until_ready(
-            replay_loss_grads(scene, cam, cfg_rep, 0, recs_tpu, target)
+            replay_loss_grads(scene, cam, cfg_rep, 0, recs_dev, target)
         )
 
     def cam_yp(dc):
         return np.array([float(dc.yaw), float(dc.pitch)], np.float64)
 
     blocks = [
-        ("d emission", "d_emission", ds_jn.emission, ds_pn.emission,
-         None if ds_rep is None else ds_rep.emission, ds_hn.emission),
-        ("d albedo", "d_albedo", ds_jn.color, ds_pn.color,
-         None if ds_rep is None else ds_rep.color, ds_hn.color),
-        ("d position", "d_position", ds_jn.position, ds_pn.position,
-         None if ds_rep is None else ds_rep.position, ds_hn.position),
-        ("d radius", "d_radius", ds_jn.radius, ds_pn.radius,
-         None if ds_rep is None else ds_rep.radius, ds_hn.radius),
-        ("d camera pos", "d_cam_position", dc_jn.position, dc_pn.position,
-         None if dc_rep is None else dc_rep.position, dc_hn.position),
-        (
-            "d camera yaw/pitch",
-            None,
-            cam_yp(dc_jn),
-            cam_yp(dc_pn),
-            None if dc_rep is None else cam_yp(dc_rep),
-            cam_yp(dc_hn),
-        ),
+        ("d emission", "d_emission", ds_jn.emission,
+         None if ds_rep is None else ds_rep.emission),
+        ("d albedo", "d_albedo", ds_jn.color,
+         None if ds_rep is None else ds_rep.color),
+        ("d position", "d_position", ds_jn.position,
+         None if ds_rep is None else ds_rep.position),
+        ("d radius", "d_radius", ds_jn.radius,
+         None if ds_rep is None else ds_rep.radius),
+        ("d camera pos", "d_cam_position", dc_jn.position,
+         None if dc_rep is None else dc_rep.position),
+        ("d camera yaw/pitch", None, cam_yp(dc_jn),
+         None if dc_rep is None else cam_yp(dc_rep)),
     ]
-    for name, key, g_jnp, g_pal, g_rep, g_hand in blocks:
+    for name, key, g_jnp, g_rep in blocks:
         if key is None:
             oracle = np.array(
                 [float(orc["f64_d_cam_yaw"]), float(orc["f64_d_cam_pitch"])]
@@ -283,61 +219,49 @@ def main() -> int:
         e_floor = rel_err(floor32, oracle)
         e_rep = rel_err(g_rep, oracle) if g_rep is not None else None
         e_jnp = rel_err(g_jnp, oracle)
-        e_pal = rel_err(g_pal, oracle)
-        # The jnp-AD allowance is itself bounded: platform delta may not
-        # exceed 10x the worse of the two measured floors (same-platform
-        # f32 accumulation; same-decision cross-platform drift) or an
-        # absolute 2e-2 — beyond that it is a bug, not noise, and the
-        # block FAILs regardless of how close Pallas sits to it.
-        e_hand = rel_err(g_hand, oracle)
+        # Platform delta may not exceed 10x the worse of the two measured
+        # floors (same-platform f32 accumulation; same-decision
+        # cross-platform drift) or an absolute 2e-2 — beyond that it is a
+        # bug, not noise.
         floor = max(e_floor, e_rep) if e_rep is not None else e_floor
-        ceil_jnp = max(10.0 * floor, 2e-2)
-        jnp_ok = e_jnp <= ceil_jnp
-        gate = max(min(e_jnp, ceil_jnp), 2.0 * e_floor, 5e-3)
-        good = (e_pal <= gate) and (e_hand <= gate) and jnp_ok
+        gate = max(10.0 * floor, 2e-2)
+        good = e_jnp <= gate
         ok &= good
         rep_txt = f"{e_rep:.2e}" if e_rep is not None else "—"
         lines.append(
-            f"| {name} | {e_floor:.2e} | {rep_txt} | {e_jnp:.2e} "
-            f"(≤{ceil_jnp:.1e}) | {e_pal:.2e} | {e_hand:.2e} | {gate:.2e} | "
+            f"| {name} | {e_floor:.2e} | {rep_txt} | {e_jnp:.2e} | {gate:.2e} | "
             f"{'PASS' if good else 'FAIL'} |"
         )
 
-    # Cross-backend forward agreement at the record point (the oracle's
+    # Cross-platform forward agreement at the record point (the oracle's
     # decisions were recorded by the CPU f32 renderer; borderline lanes may
-    # select differently on TPU — quantify how many).
-    from pathtrace_tpu.ops.pallas_trace import render_color_sums_pallas
+    # select differently on this device — quantify how many).
+    from pathtrace_tpu.grad import render_color
 
-    color_pal = np.asarray(
-        render_color_sums_pallas(scene, cam, cfg_pn, 0) / cfg_pn.spp
-    )
+    color_dev = np.asarray(jax.jit(render_color, static_argnames="cfg")(scene, cam, cfg_jn, 0))
     rec_color = np.asarray(orc["record_color"])
-    adiff = np.abs(color_pal - rec_color)
+    adiff = np.abs(color_dev - rec_color)
     drift = float(np.mean(np.any(adiff > 1e-4, axis=-1)))
     flips = float(np.mean(np.any(adiff > 1e-2, axis=-1)))
     lines += [
         "",
         f"Record-point consistency: {drift*100:.2f}% of pixels differ by",
-        "> 1e-4 between the Pallas forward (TPU) and the oracle's recorded",
-        f"f32 forward (CPU) — cross-platform f32 arithmetic drift — and",
-        f"{flips*100:.2f}% by > 1e-2 (the likely borderline-lane decision",
-        "flips). Both effects are what the jnp-TPU cross-platform floor",
-        "column quantifies at the gradient level.",
+        "> 1e-4 between the jnp forward on this device and the oracle's",
+        f"recorded f32 forward (CPU) — cross-platform f32 arithmetic drift —",
+        f"and {flips*100:.2f}% by > 1e-2 (the likely borderline-lane decision",
+        "flips).",
         "",
-        "## 3. Finite differences at the BASELINE config",
+        "## 2. Finite differences at the full config",
         "",
-        "Shading parameters: central FD of the raw Pallas MSE loss (linear",
-        "paths — no discrete sensitivity, threshold 2e-2, eps-limited).",
+        "Shading parameters: central FD of the jnp MSE loss (linear paths —",
+        "no discrete sensitivity, threshold 2e-2, eps-limited).",
         "",
-        "| parameter | analytic (Pallas) | FD | rel err | pass |",
+        "| parameter | analytic (jax.grad) | FD | rel err | pass |",
         "|---|---|---|---|---|",
     ]
 
     def loss_of(scene_, cam_, cfg):
-        if cfg.nee:
-            l, _ = ad_loss_and_grads_pallas(scene_, cam_, cfg, 0, target)
-        else:
-            l, _ = pallas_loss_and_grads(scene_, cam_, cfg, 0, target)
+        l, _ = render_loss_grads(scene_, cam_, cfg, 0, target)
         return l
 
     def fd_check(name, cfg, get_grad, perturb, eps):
@@ -355,19 +279,19 @@ def main() -> int:
     wall = 0
     ok &= fd_check(
         f"sphere[{wall}].color.r",
-        cfg_p,
-        lambda: ds_p.color[wall, 0],
+        cfg_j,
+        lambda: ds_j.color[wall, 0],
         lambda h: loss_of(
-            scene.replace(color=scene.color.at[wall, 0].add(h)), cam, cfg_p
+            scene.replace(color=scene.color.at[wall, 0].add(h)), cam, cfg_j
         ),
         eps=1e-3,
     )
     ok &= fd_check(
         "sphere[8].emission.r",
-        cfg_p,
-        lambda: ds_p.emission[8, 0],
+        cfg_j,
+        lambda: ds_j.emission[8, 0],
         lambda h: loss_of(
-            scene.replace(emission=scene.emission.at[8, 0].add(h)), cam, cfg_p
+            scene.replace(emission=scene.emission.at[8, 0].add(h)), cam, cfg_j
         ),
         eps=1e-3,
     )

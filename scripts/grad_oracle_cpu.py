@@ -1,4 +1,4 @@
-"""Gradient-gate phase A: the CPU f64 oracle (run on CPU, no TPU needed).
+"""Gradient-gate phase A: the CPU f64 oracle (run on CPU, no accelerator needed).
 
 Produces ``results/grad_oracle/oracle.npz`` consumed by scripts/grad_gate.py:
 
@@ -101,7 +101,7 @@ def main() -> int:
     print(f"[A1] recorded {S}^2 x {SPP} spp in {time.time()-t0:.0f}s", flush=True)
 
     # Decisions artifact (compact dtypes): lets phase B run the f32 replay
-    # on the oracle's OWN decisions ON TPU — the true cross-platform
+    # on the oracle's OWN decisions ON the device — the true cross-platform
     # arithmetic-drift floor, free of borderline decision flips.
     dec_path = os.path.join(os.path.dirname(args.out) or ".", "decisions.npz")
     # Stamp decisions.npz with the same lattice-defining config as

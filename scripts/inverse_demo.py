@@ -1,26 +1,25 @@
 """Inverse-rendering headline artifact (BASELINE config #4).
 
 Generates ``docs/INVERSE.md`` plus its images: recover sphere albedos AND
-a sphere's position from a rendered target, on the all-Pallas
-cross-estimator gradient path (ops/pallas_grad.pallas_cross_grads +
-ops/pallas_ad in-kernel AD under NEE). This is the capability the CUDA
-reference never had — its renderer (src/pathtrace.cu) is forward-only.
+a sphere's position from a rendered target, through the cross-estimator
+gradient path (``inverse.make_inverse_step``: jax.grad of the jnp tracer).
+This is the capability the CUDA reference never had — its renderer
+(src/pathtrace.cu) is forward-only.
 
 Two experiments, both starting from a deliberately corrupted Cornell box:
 
-1. **Albedo recovery** (diffuse, hand-derived product-chain backward):
-   all 9 sphere albedos perturbed; Adam on the cross-estimator L2.
-2. **Geometry recovery** (NEE, in-kernel-AD backward): the mirror-side
-   sphere displaced and shrunk; optimize its position and radius (albedos
-   held fixed — the geometry blocks are the hard, cancellation-heavy case
-   the in-kernel-AD path exists for).
+1. **Albedo recovery** (diffuse): all 9 sphere albedos perturbed; Adam on
+   the cross-estimator L2.
+2. **Geometry recovery** (NEE): the mirror-side sphere displaced and
+   shrunk; optimize its position and radius (albedos held fixed — the
+   geometry blocks are the hard, cancellation-heavy case).
 
 Outputs: docs/inverse_{albedo,geometry}_{before,after,target}.png,
 docs/inverse_curves.png, docs/INVERSE.md (tables of true/corrupted/
 recovered parameters + final image L2).
 
 Usage: python scripts/inverse_demo.py [--size 256] [--spp 8] [--steps 400]
-       (runs on TPU; CPU works via --interpret but is slow)
+       (on the GPU; the CPU works but is slow)
 """
 
 from __future__ import annotations
@@ -60,17 +59,16 @@ def main() -> int:
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--spp", type=int, default=8)
     ap.add_argument("--steps", type=int, default=400)
-    ap.add_argument("--interpret", action="store_true")
     ap.add_argument("--out", type=str, default=os.path.join(DOCS, "INVERSE.md"))
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_bench_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
     from pathtrace_tpu import Camera, RenderConfig, cornell_box
+    from pathtrace_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from pathtrace_tpu.inverse import _apply_params, make_inverse_step
     from pathtrace_tpu.render import render_aovs
 
@@ -85,8 +83,7 @@ def main() -> int:
         tcfg = dataclasses.replace(cfg, spp=target_spp, spp_chunk=8)
         target = render_aovs(scene_true, cam, tcfg, frame=987654)["color"]
         state, step_fn, _ = make_inverse_step(
-            corrupted, cam, cfg, target, optimize, lr,
-            interpret=args.interpret, grad_mask=mask,
+            corrupted, cam, cfg, target, optimize, lr, grad_mask=mask,
         )
         losses = []
         for i in range(args.steps):
@@ -113,8 +110,8 @@ def main() -> int:
         )
         return recovered, losses
 
-    # -- 1. albedo recovery (diffuse, product-chain backward kernel) --------
-    cfg_a = RenderConfig(width=S, height=S, spp=args.spp, backend="pallas")
+    # -- 1. albedo recovery (diffuse) ---------------------------------------
+    cfg_a = RenderConfig(width=S, height=S, spp=args.spp)
     rng = np.random.default_rng(0)
     bad_color = np.clip(
         np.asarray(scene_true.color) + rng.uniform(-0.35, 0.35, (9, 3)), 0.05, 0.95
@@ -130,7 +127,7 @@ def main() -> int:
         ("albedo (9 spheres x RGB)", f"{err_before:.4f}", f"{err_after:.4f}")
     )
 
-    # -- 2. geometry under NEE (in-kernel-AD backward) ----------------------
+    # -- 2. geometry under NEE ----------------------------------------------
     # Position/radius of the displaced sphere only. Gradients masked to
     # that sphere (Adam's normalized steps would otherwise walk the r=1e5
     # wall spheres ~lr units/step and collapse the box — see
@@ -190,11 +187,9 @@ def main() -> int:
         "never had (its kernel is forward-only, `src/pathtrace.cu`).",
         f"Generated by `scripts/inverse_demo.py` on {time.strftime('%Y-%m-%d')}:",
         f"Cornell {S}^2 x {args.spp} spp per step, {args.steps} Adam steps,",
-        "ALL-PALLAS gradients (cross-estimator `pallas_cross_grads`:",
-        "two independent renders A, B give E[(A-T)(B-T)] = ||E[R]-T||^2",
-        "with no Monte-Carlo variance bias; backward = hand-derived",
-        "product-chain kernel for shading, in-kernel-AD replay kernel",
-        "(ops/pallas_ad.py) for geometry under NEE).",
+        "cross-estimator gradients (`inverse.make_inverse_step`: two",
+        "independent renders A, B give E[(A-T)(B-T)] = ||E[R]-T||^2 with no",
+        "Monte-Carlo variance bias; backward = jax.grad of the jnp tracer).",
         "",
         "| parameter block | error (corrupted) | error (recovered) |",
         "|---|---|---|",

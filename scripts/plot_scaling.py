@@ -1,11 +1,11 @@
 """Render the denoiser quality-vs-corpus scaling figure for
-docs/E2E_TPU_RUN.md (VERDICT r4 #3): best-observed validation PSNR
+docs/E2E_RUN.md (VERDICT r4 #3): best-observed validation PSNR
 (trainer formula, 10*log10(1/L1) — denoise_cnn/train.py:43) against the
 training-corpus size {33, 66, 132} poses x 16 patches, plus the
 model-capacity probe (lateral_features 32->64 at the 66-pose corpus) as a
 separate series at its corpus point.
 
-The numbers are the committed run records (docs/E2E_TPU_RUN.md tables);
+The numbers are the committed run records (docs/E2E_RUN.md tables);
 pass --point/--capacity to regenerate with different ones.
 
 Usage: python scripts/plot_scaling.py [--out docs/ref_scaling_curve.png]

@@ -1,6 +1,6 @@
 """Render training curves from a run's metrics.jsonl.
 
-Produces the loss/PSNR/LR figure embedded in docs/E2E_TPU_RUN.md from the
+Produces the loss/PSNR/LR figure embedded in docs/E2E_RUN.md from the
 structured JSONL the trainer writes (utils/metrics.py::JsonlLogger) — the
 reference eyeballed stdout and PNG dumps (denoise_cnn/train.py:30,45,115).
 

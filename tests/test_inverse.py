@@ -34,11 +34,11 @@ def test_recover_wall_albedo():
 
 @pytest.mark.slow
 def test_all_pallas_position_recovery():
-    """VERDICT round-1 item #2 done-criterion: an all-Pallas inverse step
-    (NEE cross-estimator via the in-kernel-AD backward) optimizes a sphere
-    POSITION toward the target. Interpret mode on CPU; few steps — the
-    gate is that the z coordinate moves the right way under real geometry
-    gradients, not full convergence."""
+    """An inverse step (NEE cross-estimator, jax.grad of the jnp tracer)
+    configured with the megakernel backend optimizes a sphere POSITION
+    toward the target: the gradient path ignores ``cfg.backend``. Few
+    steps — the gate is that the z coordinate moves the right way under
+    real geometry gradients, not full convergence."""
     from pathtrace_tpu.render import render_aovs
 
     scene = cornell_box()
@@ -57,7 +57,7 @@ def test_all_pallas_position_recovery():
     )
     state, step_fn, _ = make_inverse_step(
         corrupted, cam, cfg, target,
-        optimize=("position",), learning_rate=0.5, interpret=True,
+        optimize=("position",), learning_rate=0.5,
     )
     z0 = float(corrupted.position[ball, 2])
     true_z = float(scene.position[ball, 2])

@@ -1,13 +1,14 @@
 """Real multi-process runtime: 2 OS processes x 4 virtual CPU devices.
 
-VERDICT r2 item #3: ``initialize_multihost`` (parallel/mesh.py) must be
+``initialize_multihost`` (parallel/mesh.py) must be
 exercised by an actual 2-process ``jax.distributed`` bring-up — not just
 a single-process virtual mesh. Each subprocess joins a coordinator on
 localhost, builds the process-spanning ("tiles", "samples") mesh, renders
 a sharded frame and cross-checks its addressable row-slabs plus the
 all-reduced gradients against a locally computed single-device reference
-(see tests/multihost_worker.py). This is the CPU stand-in for a TPU pod:
-same mesh/collective code path, gloo instead of ICI/DCN.
+(see tests/multihost_worker.py). This is the CPU stand-in for a
+multi-host cluster: same mesh/collective code path, gloo instead of NCCL.
+The workers are forced to the CPU and never open an accelerator.
 """
 
 import os

@@ -1,8 +1,10 @@
-"""Pallas megakernel vs the jnp oracle (interpret mode on CPU).
+"""Triton megakernel vs the jnp reference (Pallas interpreter on CPU).
 
 Geometry channels (bounce-0 AOVs) are RNG-free at spp=1 and must match the
-jnp backend to float tolerance; color/variance channels use different (but
-statistically equivalent) RNG streams and are compared in the moments.
+jnp backend to float tolerance. Both backends draw the same RNG lattice, so
+color/variance channels agree per pixel except where float rounding flips
+a hit decision near a silhouette; those are compared by the share of
+pixels that differ and by image means.
 """
 
 import dataclasses
@@ -199,12 +201,87 @@ def test_partials_match_jnp_accumulate():
     )
 
 
-def test_generic_interpreter_matches_mosaic_interpreter(scene, camera):
-    """interpret="jax" (the generic Pallas interpreter — required under a
-    multi-process runtime where the Mosaic interpreter deadlocks,
-    tests/multihost_worker.py) must stay bit-identical to interpret=True."""
-    cam = camera
-    cfg = RenderConfig(width=16, height=16, spp=2, max_bounces=2, backend="pallas")
-    a = np.asarray(render_channels_pallas(scene, cam, cfg, 0, interpret=True))
-    b = np.asarray(render_channels_pallas(scene, cam, cfg, 0, interpret="jax"))
-    np.testing.assert_array_equal(a, b)
+@pytest.mark.parametrize("height,width", [(13, 130), (1080, 1920)])
+def test_wrapper_pads_to_tiles_and_crops(height, width):
+    """Frames are padded to whole power-of-two tiles, launched as one array
+    per channel, and cropped back to [H, W, 14] (or 22 partials)."""
+    import jax
+
+    from pathtrace_tpu.ops.pallas_trace import accumulate_frame_pallas, launch_dims
+
+    t, warps, pad_h, pad_w = launch_dims(height, width, RenderConfig().threads_per_block)
+    assert (t, warps) == (8, 2)  # 64 pixels on 64 threads
+    assert pad_h % t == 0 and 0 <= pad_h - height < t
+    assert pad_w % t == 0 and 0 <= pad_w - width < t
+    assert launch_dims(13, 130, 16) == (16, 8, 16, 144)
+    assert launch_dims(13, 130, 4) == (4, 1, 16, 132)
+    with pytest.raises(ValueError, match="power of two"):
+        launch_dims(height, width, 6)
+    scene, cam = cornell_box(), Camera.create()
+    cfg = RenderConfig(width=width, height=height, spp=1)
+    out = jax.eval_shape(
+        lambda s, c: render_channels_pallas(s, c, cfg, interpret=True), scene, cam
+    )
+    assert out.shape == (height, width, 14)
+    sums, moments = jax.eval_shape(
+        lambda s, c: accumulate_frame_pallas(s, c, cfg, 0, interpret=True), scene, cam
+    )
+    assert sums["color"].shape == (height, width, 3)
+    assert moments["depth"].m2.shape == (height, width)
+
+
+def test_emit_partials_match_accumulate_frame(scene, camera):
+    """emit_partials mode (the sharded and progressive feed) returns the
+    same raw sums and Welford moments as render.accumulate_frame on the
+    same lattice, up to isolated silhouette flips."""
+    from pathtrace_tpu.ops.pallas_trace import render_partials_pallas
+    from pathtrace_tpu.render import accumulate_frame
+
+    cfg = RenderConfig(width=32, height=16, spp=2, max_bounces=2, seed=4)
+    s_j, m_j = accumulate_frame(scene, camera, cfg, 1, sample_offset=3)
+    s_p, m_p = render_partials_pallas(scene, camera, cfg, 1, 3, interpret=True)
+    for k in s_j:
+        d = np.abs(np.asarray(s_p[k]) - np.asarray(s_j[k]))
+        scale = max(float(np.abs(np.asarray(s_j[k])).max()), 1e-6)
+        assert float((d > 1e-3 * scale).mean()) < 0.02, k
+    for k in m_j:
+        np.testing.assert_array_equal(np.asarray(m_p[k].n), np.asarray(m_j[k].n))
+        d = np.abs(np.asarray(m_p[k].mean) - np.asarray(m_j[k].mean))
+        scale = max(float(np.abs(np.asarray(m_j[k].mean)).max()), 1e-6)
+        assert float((d > 1e-3 * scale).mean()) < 0.02, k
+
+
+
+@pytest.mark.parametrize("how", ["jax_config", "xla_flags"])
+def test_kernel_refuses_xla_kernel_cache(scene, camera, monkeypatch, request, tmp_path, how):
+    """With XLA's GPU kernel cache file on, the megakernel returned wrong
+    channels on the GPU, so compiling it then fails loudly; the interpreter
+    and the jnp path are untouched by that cache."""
+    import functools
+
+    import jax
+
+    from pathtrace_tpu.ops import pallas_trace
+
+    cfg = RenderConfig(width=16, height=8, spp=1, max_bounces=2)
+
+    def trace(interpret):
+        return jax.eval_shape(
+            lambda s, c: render_channels_pallas(s, c, cfg, interpret=interpret),
+            scene, camera,
+        )
+
+    assert not pallas_trace.xla_kernel_cache_on()
+    if how == "xla_flags":
+        monkeypatch.setenv("XLA_FLAGS", f"--xla_gpu_kernel_cache_file={tmp_path}/k")
+    else:
+        for name, value in (("jax_compilation_cache_dir", str(tmp_path)),
+                            ("jax_persistent_cache_enable_xla_caches", "all")):
+            request.addfinalizer(
+                functools.partial(jax.config.update, name, getattr(jax.config, name))
+            )
+            jax.config.update(name, value)
+    assert pallas_trace.xla_kernel_cache_on()
+    with pytest.raises(RuntimeError, match="kernel cache"):
+        trace(interpret=False)
+    assert trace(interpret=True).shape == (8, 16, 14)

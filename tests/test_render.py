@@ -130,8 +130,8 @@ def test_roofline_mirror_matches_kernel(scene, camera):
     """The roofline op counter traces _kernel_sample_mirror, a
     hand-maintained duplicate of _pathtrace_kernel's sample body; this
     asserts the mirror's ACCUMULATED output equals the real kernel's
-    render on an (8,128) tile, so silent drift fails CI instead of
-    corrupting the counted mfu numerator (advisor r4)."""
+    render on an 8 x 128 frame, so silent drift fails CI instead of
+    corrupting the counted op budget."""
     import jax
     import jax.numpy as jnp
 
@@ -140,8 +140,7 @@ def test_roofline_mirror_matches_kernel(scene, camera):
     )
     from pathtrace_tpu.utils.roofline import _kernel_sample_mirror
 
-    cfg = RenderConfig(width=128, height=8, spp=4, backend="pallas",
-                       tile_shape=(8, 128), seed=3)
+    cfg = RenderConfig(width=128, height=8, spp=4, backend="pallas", seed=3)
     frame = 2
     real = np.asarray(render_channels_pallas(scene, camera, cfg, frame=frame,
                                              interpret=True))
